@@ -1,8 +1,8 @@
-/* C host embedding the TPU ocean framework.
+/* C host embedding the JAX ocean framework.
  *
  * The reference ships an iOS embedding: a C-ABI `run_app()` exported from
  * a Rust staticlib, driven by an Obj-C host (examples/ios/ios.rs:3-6,
- * examples/ios/src/main.m:10-12). The TPU-native analog is a C host that
+ * examples/ios/src/main.m:10-12). The analog here is a C host that
  * embeds CPython, initializes the framework, runs simulation steps, and
  * reads back a field checksum — the pattern for wiring the engine into a
  * native serving process.

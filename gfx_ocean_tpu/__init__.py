@@ -1,16 +1,16 @@
-"""gfx_ocean_tpu — a TPU-native rebuild of the gfx-rs/gfx-ocean FFT ocean.
+"""gfx_ocean_tpu — a JAX rebuild of the gfx-rs/gfx-ocean FFT ocean.
 
-The reference (mounted at /root/reference) is a Rust + gfx-hal + GLSL
-real-time Tessendorf ocean demo; this package re-designs it for TPU:
+The reference is a Rust + gfx-hal + GLSL real-time Tessendorf ocean
+demo; this package re-designs it as a JAX program (run on a GPU; tests
+run on the CPU):
 
 - the four compute passes (propagate / fft_row / fft_col / correction)
   become a pure ``step(state, t)`` under ``jax.jit`` (``models/ocean.py``),
-  with the 2-D inverse FFT expressed as MXU matmuls (``ops/fft.py``) or a
-  fused VMEM-resident Pallas kernel (``ops/pallas_step.py``);
+  with the 2-D inverse FFT as dense matmuls or ``jnp.fft`` (``ops/fft.py``);
 - frames-in-flight pipelining becomes ``jax.lax.scan`` rollouts;
 - the renderer (``shader/ocean.vert``/``.frag``) becomes a vectorized JAX
   rasterizer along a scripted camera (``render/``);
-- multi-chip scaling (which the reference lacks entirely) ships in
+- multi-device scaling (which the reference lacks entirely) ships in
   ``parallel/``: row-sharded spectra with an all-to-all transpose between
   the row and column FFT passes over a ``jax.sharding.Mesh``.
 """

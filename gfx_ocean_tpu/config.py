@@ -1,4 +1,4 @@
-"""Configuration for the TPU-native ocean simulation framework.
+"""Configuration for the JAX ocean simulation framework.
 
 Everything that is a compile-time constant or GLSL literal in the reference
 (gfx-rs/gfx-ocean) becomes an explicit config field here:
@@ -74,44 +74,35 @@ class OceanConfig:
     domain_size: float = 1000.0
 
     # --- FFT implementation ---
-    # "matmul": DFT-as-matmul on the MXU (direct W@X@W for N<=1024,
+    # "matmul": DFT as dense matmuls (direct W@X@W for N<=1024,
     #           four-step Cooley-Tukey decomposition above).
-    # "xla":    jnp.fft.ifft2 (XLA FFT HLO) — golden / fallback path.
-    # "pallas": fused single-kernel Pallas step (VMEM-resident).
+    # "xla":    jnp.fft (XLA's FFT op; cuFFT on the GPU).
     fft_impl: str = "matmul"
     # Largest N for which a direct dense DFT matrix is used by the matmul
     # path; above this the four-step N = N1*N2 split kicks in.
     direct_dft_max: int = 1024
 
     # --- numerics ---
-    # The 1e-4 L-inf target (BASELINE.json) leaves no room for plain bf16 in
-    # the transform; on the MXU f32 matmuls run as multi-pass bf16. Measured
-    # at 512^2 vs the float64 golden (absolute / relative L-inf, steps/s):
-    #   "bf16x3"  explicit-split 3-pass:   9e-5 / 8e-6,   ~6,400  (default —
-    #             meets the 1e-4 target even read as ABSOLUTE error)
-    #   "bf16x4"  explicit-split 4-pass:   7e-5 / 6e-6,   ~4,700
-    #   "high"    XLA bf16x3:              3e-4 / 2.8e-5, ~7,600  (fastest
-    #             compliant under the relative reading)
-    #   "highest" XLA bf16x6:              4e-6 / 3e-7,   ~3,600
-    #   "default" bf16 single pass:        3e-2 / 2.6e-3  (viz-only)
+    # Matmul precision tier of the "matmul" transform (ops/fft.py):
+    #   "bf16x3" / "bf16x4"  explicit hi/lo operand split, 3 or 4 partial
+    #                        dots at DEFAULT precision (the default tier)
+    #   "highest" / "high" / "default"  XLA's own precision settings
+    # The 1e-4 relative L-inf bound vs the float64 golden decides the tier.
     matmul_precision: str = "bf16x3"
     # Optional lower precision for the two choppy-displacement transforms
     # (disp_x/disp_z). The BASELINE accuracy bound is on the HEIGHT field;
     # the XZ offsets are a visual effect scaled by 1/3.5 (ocean.vert:23),
     # where bf16 error (~1e-2 relative) is far below perceptibility. At
     # 4096^2 setting this to "default" turns 2 of the 3 spectra's
-    # transforms into single-pass MXU work. None = use matmul_precision.
+    # transforms into single-pass work. None = use matmul_precision.
     choppy_precision: Optional[str] = None
     # Hermitian field packing: the step needs only Re(F(S)) per spectrum, so
     # each evolved spectrum is Hermitian-symmetrized (H = (S + conj(S o
     # rho))/2, exactly Re-preserving) and the two choppy fields then share
     # ONE complex transform (Z = H_dx + i*H_dz -> dx + i*dz). 14 instead of
-    # 18 real matmul-stages per frame; the big lever for 4096^2 real-time at
-    # uniform precision. Measured on v5e (bf16x3-class): +26% at 1024^2,
-    # +42% at 2048^2, +33% at 4096^2; a net LOSS at 512^2 (the packed
-    # propagate's second cos/sin plane pair dominates when the transform is
-    # small). None (default) = auto: on for resolution >= 1024 on the
-    # matmul/xla paths, off below and for pallas.
+    # 18 real matmul-stages per frame. The packed propagate needs a second
+    # cos/sin plane pair, which outweighs the saved transform when the
+    # transform is small. None (default) = auto: on for resolution >= 1024.
     hermitian_pack: Optional[bool] = None
     dtype: str = "float32"
 
@@ -150,19 +141,11 @@ class OceanConfig:
         n = self.resolution
         if n & (n - 1) != 0 or n < 16:
             raise ValueError(f"resolution must be a power of two >= 16, got {n}")
-        if self.fft_impl not in ("matmul", "xla", "pallas"):
-            raise ValueError(f"unknown fft_impl {self.fft_impl!r}")
+        if self.fft_impl not in ("matmul", "xla"):
+            raise ValueError(f"unknown fft_impl {self.fft_impl!r} "
+                             "(expected 'matmul' or 'xla')")
         if self.hermitian_pack is None:
-            # matmul/xla: auto-on at N >= 1024 (the packed propagate's extra
-            # cos/sin plane pair dominates below — measured, see field doc).
-            # pallas: the N >= 1024 four-step kernels pack inherently; at
-            # N <= 512 the flag selects the packed single-kernel
-            # (ops/pallas_step._packed_grid_kernel), where the extra
-            # transcendentals run on the VPU under the MXU dots — on by
-            # default (measured faster on v5e, docs/BENCH.md config 0).
-            object.__setattr__(
-                self, "hermitian_pack",
-                self.resolution >= 1024 or self.fft_impl == "pallas")
+            object.__setattr__(self, "hermitian_pack", self.resolution >= 1024)
         if self.cascade_domains is not None and len(self.cascade_domains) != self.num_cascades:
             raise ValueError("cascade_domains length must equal num_cascades")
 

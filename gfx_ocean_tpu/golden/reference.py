@@ -23,7 +23,7 @@ reference's four compute passes (SURVEY.md §2.2/§2.4):
    *raw* height channel with height_scale=180 and diff = 2/N.
 
 All arithmetic runs in float64 so this model is strictly more accurate than
-both the GLSL original and the TPU path; comparisons quantify the TPU path's
+both the GLSL original and the JAX path; comparisons quantify the JAX path's
 true error.
 """
 

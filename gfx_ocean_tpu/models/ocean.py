@@ -93,8 +93,6 @@ def _fields_from_specs(specs_r: jax.Array, specs_i: jax.Array,
 
 def _precompute(state: OceanState, config: OceanConfig):
     """The rollout-hoistable time-invariant planes for the active path."""
-    if config.fft_impl == "pallas":
-        return None
     if config.hermitian_pack:
         return precompute_propagate_packed(state.h0, state.omega, config.compat)
     return precompute_propagate(state.h0, config.compat)
@@ -137,7 +135,7 @@ def _fields_packed(state: OceanState, t: jax.Array, config: OceanConfig,
 
 def step(state: OceanState, t: jax.Array, config: OceanConfig,
          pre: Optional[jax.Array] = None, ifft2=None,
-         ifft2_planes=None, pallas_disp=None) -> OceanFields:
+         ifft2_planes=None) -> OceanFields:
     """One simulation frame: propagate -> 2D iFFT x3 -> correction (+ extras).
 
     The three spectra are batched into one leading axis so the FFT runs as a
@@ -148,23 +146,9 @@ def step(state: OceanState, t: jax.Array, config: OceanConfig,
     planes (``precompute_propagate``) so rollouts hoist them out of the
     scan — the flip gathers then happen once per rollout, not per frame.
     ``ifft2`` / ``ifft2_planes`` optionally override the 2-D transforms
-    (see ``_fields_from_specs`` / ``_fields_packed``); ``pallas_disp``
-    overrides the fused Pallas step with a drop-in
-    ``(state, t) -> displacement`` twin — the hook the row-sharded
-    distributed four-step plugs into
-    (``parallel.distributed_fft.pallas_fourstep_fields_sharded``).
+    (see ``_fields_from_specs`` / ``_fields_packed``).
     """
-    if config.fft_impl == "pallas":
-        from gfx_ocean_tpu.ops.pallas_step import pallas_fields  # noqa: PLC0415
-
-        if pallas_disp is not None:
-            disp = pallas_disp(state, t)
-        elif state.h0.ndim == 3:
-            disp = pallas_fields(state.h0, state.omega, t, config)
-        else:  # leading batch axes (cascades): map the fused kernel
-            disp = jax.vmap(lambda h, o: pallas_fields(h, o, t, config))(
-                state.h0, state.omega)
-    elif config.hermitian_pack:
+    if config.hermitian_pack:
         if pre is None:
             pre = _precompute(state, config)
         disp = _fields_packed(state, t, config, pre, ifft2=ifft2,
@@ -211,37 +195,15 @@ def make_rollout(config: OceanConfig, keep_fields: bool = True, time_batch: int 
     ``time_batch > 1`` vmaps ``time_batch`` frames inside each scan
     iteration. Frames are independent (the sim is stateless in time,
     SURVEY.md §5), so this is a pure throughput optimization: the DFT
-    matmuls grow a batch dimension and utilize the MXU far better than the
-    reference's strictly sequential frame loop ever could. ``len(ts)`` must
-    be a multiple of ``time_batch``.
+    matmuls grow a batch dimension. ``len(ts)`` must be a multiple of
+    ``time_batch``.
 
-    This is the TPU-native analog of the reference's frames-in-flight
-    pipelining (SURVEY.md §2.5): XLA overlaps the scan iterations' compute
-    and memory traffic without any semaphores.
+    This is the analog of the reference's frames-in-flight pipelining
+    (SURVEY.md §2.5): XLA overlaps the scan iterations' compute and memory
+    traffic without any semaphores.
     """
 
-    # Checksum mode on the fused Pallas path consumes the kernels' NATIVE
-    # (3, N, N) plane layout: the public channel-last contract would
-    # insert a (3, N, N) -> (N, N, 3) relayout that a sum/normals
-    # consumer never needs (~0.5 ms/step of pure HBM traffic at 4096^2,
-    # visible as slice_bitcast fusions in the trace). Every field is
-    # still fully computed and consumed; only the layout transform of
-    # the unconsumed channel-last VIEW is skipped. Foam needs the
-    # channel-last Jacobian helper, so it keeps the step() path.
-    planes_checksum = (not keep_fields and config.fft_impl == "pallas"
-                       and not config.compute_foam)
-
     def one(state, t, pre=None):
-        if planes_checksum and state.h0.ndim == 3:
-            # In-kernel forcing reduction (round 5): the kernels emit
-            # sum(planes) [+ sum(normals)] from their final pass instead
-            # of XLA re-reading ~5 field planes from HBM (~12% of the
-            # step at 4096^2). Fields are still fully materialized —
-            # ops/pallas_step.pallas_checksums docstring.
-            from gfx_ocean_tpu.ops.pallas_step import pallas_checksums  # noqa: PLC0415
-
-            return pallas_checksums(
-                state.h0, state.omega, jnp.reshape(t, (1,)), config)[0]
         fields = step(state, t, config, pre=pre)
         if keep_fields:
             return fields
@@ -253,23 +215,10 @@ def make_rollout(config: OceanConfig, keep_fields: bool = True, time_batch: int 
             out = out + jnp.sum(fields.foam, dtype=jnp.float32)
         return out
 
-    def one_batch(state, ts):
-        # In-kernel time batch (round 5): on the four-step path the tb
-        # frames share one fetch of the row kernel's 10 hoisted propagate
-        # planes (its dominant HBM traffic); vmap-of-pallas_call would
-        # re-stream them per frame. Per-frame planes are bit-identical
-        # to the tb=1 kernel (ops/pallas_step.pallas_planes_batch), and
-        # the forcing reduction rides the kernels (see ``one``).
-        from gfx_ocean_tpu.ops.pallas_step import pallas_checksums  # noqa: PLC0415
-
-        return pallas_checksums(state.h0, state.omega, ts, config)
-
     def body(carry, t):
         state, pre = carry
         if time_batch == 1:
             return carry, one(state, t, pre)
-        if planes_checksum and state.h0.ndim == 3:
-            return carry, one_batch(state, t)
         return carry, jax.vmap(lambda tt: one(state, tt, pre))(t)
 
     def rollout(state: OceanState, ts: jax.Array):
@@ -304,19 +253,14 @@ def make_uniform_rollout(config: OceanConfig, steps: int, dt: float,
     field error stays ~1e-6 relative, validated in tests). Exact-vs-
     recurrence differences vanish entirely at ``resync_every=1``.
 
-    Measured caveat (v5e): at N = 4096 the step is HBM-bandwidth-bound and
-    the carried (c, s) planes ADD traffic — recurrence is a net loss there
-    (50 vs 55 steps/s); it pays only when transcendentals dominate. The
+    At large N the step is memory-bound and the carried (c, s) planes ADD
+    traffic, so recurrence pays only where transcendentals dominate. The
     exact mode (``phase_recurrence=False``) is the plain uniform-grid
     rollout API.
 
     Returns ``rollout(state, t0) -> checksums (steps,)`` (or fields with
-    ``keep_fields=True``). Not used by the pallas path (its propagate is
-    in-kernel).
+    ``keep_fields=True``).
     """
-    if config.fft_impl == "pallas":
-        raise ValueError("uniform rollout applies to the matmul/xla paths, "
-                         "not pallas (its propagate is in-kernel)")
     if config.hermitian_pack:
         raise ValueError("uniform rollout does not support hermitian_pack; "
                          "use make_rollout (phase recurrence is a net loss "

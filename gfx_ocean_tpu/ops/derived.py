@@ -1,6 +1,6 @@
 """Post-FFT field assembly: correction, normals, foam.
 
-TPU equivalents of ``shader/correction.comp`` (sign fix-up + packing into
+JAX equivalents of ``shader/correction.comp`` (sign fix-up + packing into
 the rgba32f displacement texture) and ``shader/ocean.frag:50-67`` (the
 finite-difference normal map the reference recomputes per fragment — here a
 vectorized pass over the whole grid, fused by XLA into the step), plus the
@@ -56,15 +56,8 @@ def finite_difference_normals_planes(
     """Central-difference normal map in PLANE-MAJOR (..., 3, N, N) layout.
 
     Same math as :func:`finite_difference_normals` (the public
-    channel-last form) but stacked on axis -3: reduction/plane consumers
-    (the benchmark checksum rollout) never need the channel-last view.
-    MEASURED EFFECT: neutral on the checksum rollout (8192^2: 45.1
-    steps/s vs 45.0 before) — under a reduce consumer XLA never
-    materialized the channel-last stack, so unlike the displacement
-    relayout (which sat between a pallas output and its consumer,
-    ~0.5 ms/step at 4096^2) there was no hidden interleave to delete.
-    Kept as the layout-correct form for plane-major consumers that DO
-    materialize normals.
+    channel-last form) but stacked on axis -3, the layout-correct form for
+    plane-major consumers that materialize normals.
     """
     n0, n1 = height.shape[-2], height.shape[-1]
     diff_x = jnp.float32(2.0 / n1)

@@ -2,24 +2,23 @@
 
 The reference decomposes its 2-D FFT into independent row FFTs, a barrier,
 then column FFTs (``src/render.rs:1158-1231``) — exactly the transpose
-decomposition every distributed FFT uses. On a TPU mesh this becomes:
+decomposition every distributed FFT uses. On a device mesh this becomes:
 
-    row pass   : each chip DFTs its local band of rows (local MXU matmuls)
+    row pass   : each device DFTs its local band of rows (local matmuls)
     transpose  : one ``all_to_all`` over the "row" axis reshards from
-                 row-bands to column-bands (rides ICI)
-    col pass   : each chip DFTs its local band of columns (local matmuls)
+                 row-bands to column-bands (NCCL over NVLink on GPUs)
+    col pass   : each device DFTs its local band of columns (local matmuls)
 
 ``sharding.make_sharded_step`` gets the same schedule implicitly from
 GSPMD; this module is the hand-scheduled formulation — it pins the
-communication pattern (useful at scales where GSPMD's choice regresses)
-and is the template for a future Pallas kernel with fused RDMA.
+communication pattern (useful at scales where GSPMD's choice regresses).
 
 The local passes are the SAME production kernels as the single-chip path
 (``ops/fft.py``), so every capability carries over:
 
 * four-step Cooley-Tukey above ``direct_max`` — table memory is
   O(N1^2 + N2^2 + N1*N2) ~ O(N) instead of a dense N x N W replicated
-  per chip (at 8192^2 a dense f32 table pair would be ~0.5 GB/chip);
+  per device (at 8192^2 a dense f32 table pair would be ~0.5 GB/device);
 * the (-1)^(x+y) centering sign folded into the tables (``centered=``,
   zero runtime ops — the whole correction pass vanishes, reference or
   canonical Q2 convention);
@@ -122,94 +121,6 @@ def ifft2_planes_unnorm_sharded(
     fn = shard_map(body, mesh=mesh, in_specs=(spec, spec),
                    out_specs=(spec, spec))
     return fn(xr, xi)
-
-
-def pallas_fourstep_fields_sharded(
-    h0_pair: jnp.ndarray,
-    omega: jnp.ndarray,
-    t: jnp.ndarray,
-    config,
-    mesh: Mesh,
-    axis_name: str = "row",
-    interpret: Optional[bool] = None,
-) -> jnp.ndarray:
-    """Row-sharded fused Pallas four-step step: the distributed twin of
-    ``ops.pallas_step.pallas_fields`` for N >= 1024.
-
-    The single-chip pipeline is two kernels with exactly one global data
-    exchange between them — the same row-pass/col-pass split the reference
-    dispatches (``src/render.rs:1158-1231``), which is also exactly the
-    distributed-FFT transpose. So the distributed form is the SAME two
-    production kernels run shard-locally, with the transpose promoted to
-    an ``all_to_all`` over the mesh axis:
-
-        row kernel : fused packed-Hermitian propagate + row-axis four-step
-                     on this chip's row band (k-hat grids evaluated at
-                     ABSOLUTE rows via the kernel's global-row-base scalar)
-        all_to_all : row bands -> column bands (rides ICI)
-        col kernel : column-axis four-step on this chip's column band (its
-                     tables are per-row — no column-position dependence)
-        all_to_all : back to row-sharded, matching the input layout
-
-    The packed-propagate precompute (rho flips) and the four-step x
-    permutation happen OUTSIDE shard_map at the GSPMD level: both are
-    time-invariant gathers that XLA hoists out of rollout scans, so their
-    cross-chip communication happens once per rollout, never per frame.
-
-    Args:
-        h0_pair: f32 (2, N, N) spectrum planes, row-sharded over
-            ``axis_name`` (leading cascade batching is the caller's loop —
-            see ``parallel.sharding``).
-        t: scalar time (traced).
-        config: OceanConfig with ``fft_impl='pallas'``.
-        interpret: force Pallas interpret mode (defaults to CPU backends —
-            the virtual-mesh test path).
-    Returns:
-        f32 (N, N, 3) displacement, rows sharded over ``axis_name``.
-    """
-    from gfx_ocean_tpu.ops.pallas_step import (  # noqa: PLC0415
-        _fourstep_col_call, _fourstep_permute_inputs, _fourstep_plan,
-        _fourstep_row_call, _fourstep_tables)
-
-    n = h0_pair.shape[-1]
-    n1, n2, block, cblock = _fourstep_plan(n, config)
-    p = mesh.shape[axis_name]
-    local_rows = n // p
-    if n % p or local_rows % block or local_rows % cblock:
-        raise ValueError(
-            f"distributed four-step needs N/devices divisible by the "
-            f"row band {block} and the column band {cblock}; got N={n} "
-            f"over {p} chips ({local_rows} rows/chip)")
-    row_tabs, col_tabs = _fourstep_tables(n, n1, n2, config.compat.ref_sign)
-    pre, pre_rho, omega_p, omega_rho = _fourstep_permute_inputs(
-        h0_pair, omega, config, n, n1, n2)
-    if interpret is None:
-        interpret = jax.default_backend() == "cpu"
-
-    def body(pre_l, preq_l, om_l, omq_l):
-        base = jax.lax.axis_index(axis_name) * local_rows
-        t2 = jnp.stack([t.astype(jnp.float32),
-                        base.astype(jnp.float32)]).reshape(1, 2)
-        y = _fourstep_row_call(t2, pre_l, preq_l, om_l, omq_l, row_tabs,
-                               config, n, n1, n2, block, interpret)
-        # transpose: row bands -> column bands (split x, concat rows)
-        y = jax.lax.all_to_all(y, axis_name, split_axis=3, concat_axis=2,
-                               tiled=True)
-        planes = _fourstep_col_call(y, col_tabs, config, n, n1, n2, cblock,
-                                    interpret)
-        # back to row-sharded so the caller's layout is unchanged
-        return jax.lax.all_to_all(planes, axis_name, split_axis=1,
-                                  concat_axis=2, tiled=True)
-
-    spec3 = P(None, axis_name, None)                    # (4, N, N) planes
-    spec2 = P(axis_name, None)                          # (N, N) omega
-    # check_vma=False: pallas_call's ShapeDtypeStruct outputs carry no
-    # varying-mesh-axes annotation, which the static VMA checker rejects;
-    # the collectives here are explicit, so the check adds nothing.
-    fn = shard_map(body, mesh=mesh, in_specs=(spec3, spec3, spec2, spec2),
-                   out_specs=spec3, check_vma=False)
-    planes = fn(pre, pre_rho, omega_p, omega_rho)
-    return jnp.moveaxis(planes, 0, -1)
 
 
 def ifft2_real_unnorm_sharded(

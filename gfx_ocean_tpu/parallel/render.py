@@ -1,20 +1,15 @@
 """Multi-chip band-parallel rendering (shard_map over viewport rows).
 
 The reference draws its whole 1200x700 window on the one GPU
-(``src/render.rs:1312-1362``); this module is the scaling axis it lacks,
-built the TPU way: split the viewport into horizontal bands, one per
-device along a mesh axis, and let each chip run the UNMODIFIED pool
-rasterizer on its band (``render/raster.py`` ``y_origin``/``full_height``).
-Band pixels sample f32-identical NDC centers to the full-frame render, so
-the composited image is BIT-equal to the single-chip frame — the split is
-free of seams by construction, not by tolerance.
-
-Why bands scale better than linearly: the rasterizer's device-frame floor
-is its two per-pixel-hit visibility sorts (docs/DESIGN.md round 3b), and
-sort cost is n log n in the band's hit count — D bands of n/D hits cost
-(n/D) log(n/D) each, in parallel. The sim step is replicated per device
-(it is ~1% of a 1200x700 frame; replicating it avoids an all_gather of
-the displacement map on the frame's critical path).
+(``src/render.rs:1312-1362``); this module is the scaling axis it lacks:
+split the viewport into horizontal bands, one per device along a mesh
+axis, and let each device run the UNMODIFIED pool rasterizer on its band
+(``render/raster.py`` ``y_origin``/``full_height``). Band pixels sample
+f32-identical NDC centers to the full-frame render, so the composited
+image is BIT-equal to the single-device frame — the split is free of
+seams by construction, not by tolerance. The sim step is replicated per
+device (replicating it avoids an all_gather of the displacement map on
+the frame's critical path).
 
 For OFFLINE frame production, ``make_sharded_batch_renderer`` adds the
 orthogonal axis: frames data-parallel over the mesh (the sim is stateless

@@ -2,8 +2,7 @@
 
 The reference is strictly single-process single-GPU (one queue,
 ``src/render.rs:128-140``; SURVEY.md §2.5). This module is the capability it
-lacks, built the TPU way: pick a mesh, annotate shardings, let XLA insert
-the collectives over ICI.
+lacks: pick a mesh, annotate shardings, let XLA insert the collectives.
 
 Mesh axes:
     "batch" — data parallelism over independent ocean patches / cascades
@@ -100,53 +99,15 @@ def _make_shard_map_ifft2(config: OceanConfig, mesh: Mesh, batched: bool):
     return ifft2, ifft2_planes
 
 
-def _make_pallas_disp(config: OceanConfig, mesh: Mesh, batched: bool):
-    """Drop-in ``step(pallas_disp=...)`` hook running the fused four-step
-    Pallas pipeline shard-locally with explicit all_to_all transposes
-    (``parallel.distributed_fft.pallas_fourstep_fields_sharded``).
-
-    Cascade batches run as a static Python loop of per-cascade sharded
-    pipelines (cascade counts are small and static); the batch is
-    REPLICATED over the mesh — shard rows, not cascades, when running
-    the Pallas path distributed."""
-    from gfx_ocean_tpu.parallel.distributed_fft import (  # noqa: PLC0415
-        pallas_fourstep_fields_sharded)
-
-    if mesh.shape.get("batch", 1) != 1:
-        raise ValueError(
-            "fft='shard_map' with fft_impl='pallas' shards rows only; "
-            "use a mesh with batch=1 (cascades are replicated)")
-
-    def disp(state, t):
-        want = 4 if batched else 3
-        if state.h0.ndim != want:
-            raise ValueError(
-                f"sharded pallas step built with batched={batched} expects "
-                f"h0 rank {want}, got rank {state.h0.ndim}")
-        if state.h0.ndim == 3:
-            return pallas_fourstep_fields_sharded(
-                state.h0, state.omega, t, config, mesh, axis_name="row")
-        return jnp.stack([
-            pallas_fourstep_fields_sharded(
-                state.h0[c], state.omega[c], t, config, mesh,
-                axis_name="row")
-            for c in range(state.h0.shape[0])])
-
-    return disp
-
-
 def _resolve_fft(config: OceanConfig, mesh: Mesh, batched: bool, fft: str):
-    """Returns the ``(ifft2, ifft2_planes, pallas_disp)`` hook triple
-    (all None for GSPMD). The packed (``hermitian_pack``) configuration is
-    fully supported under both strategies — the 4096^2-class setup runs on
-    the explicit-collective transform too; ``fft_impl='pallas'`` runs the
-    fused four-step kernels shard-locally around pinned all_to_alls."""
+    """Returns the ``(ifft2, ifft2_planes)`` hook pair (both None for
+    GSPMD). The packed (``hermitian_pack``) configuration is fully
+    supported under both strategies — the 4096^2-class setup runs on the
+    explicit-collective transform too."""
     if fft == "gspmd":
-        return None, None, None
+        return None, None
     if fft == "shard_map":
-        if config.fft_impl == "pallas":
-            return None, None, _make_pallas_disp(config, mesh, batched)
-        return (*_make_shard_map_ifft2(config, mesh, batched), None)
+        return _make_shard_map_ifft2(config, mesh, batched)
     raise ValueError(f"fft must be 'gspmd' or 'shard_map', got {fft!r}")
 
 
@@ -164,7 +125,7 @@ def make_sharded_step(config: OceanConfig, mesh: Mesh, batched: bool = True,
     hand-scheduled distributed FFT (``parallel/distributed_fft.py``) —
     pinned all_to_all transposes, same numerics.
     """
-    ifft2, ifft2_planes, pallas_disp = _resolve_fft(config, mesh, batched, fft)
+    ifft2, ifft2_planes = _resolve_fft(config, mesh, batched, fft)
     specs = state_specs(batched)
     field_spec = (P("batch", "row", None, None) if batched
                   else P("row", None, None))
@@ -175,8 +136,7 @@ def make_sharded_step(config: OceanConfig, mesh: Mesh, batched: bool = True,
                     None)
 
     def fn(state: OceanState, t):
-        return step(state, t, config, ifft2=ifft2, ifft2_planes=ifft2_planes,
-                    pallas_disp=pallas_disp)
+        return step(state, t, config, ifft2=ifft2, ifft2_planes=ifft2_planes)
 
     # Outputs: displacement (..., N, N, 3), normals (..., N, N, 3),
     # foam (..., N, N) — shard rows, replicate channels.
@@ -209,14 +169,14 @@ def make_sharded_rollout(config: OceanConfig, mesh: Mesh, batched: bool = True,
     """
     from gfx_ocean_tpu.models.ocean import _precompute  # noqa: PLC0415
 
-    ifft2, ifft2_planes, pallas_disp = _resolve_fft(config, mesh, batched, fft)
+    ifft2, ifft2_planes = _resolve_fft(config, mesh, batched, fft)
     specs = state_specs(batched)
     state_sharding = OceanState(h0=NamedSharding(mesh, specs.h0),
                                 omega=NamedSharding(mesh, specs.omega))
 
     def one(state, t, pre):
         fields = step(state, t, config, pre=pre, ifft2=ifft2,
-                      ifft2_planes=ifft2_planes, pallas_disp=pallas_disp)
+                      ifft2_planes=ifft2_planes)
         out = jnp.sum(fields.displacement, dtype=jnp.float32)
         if fields.normals is not None:
             out = out + jnp.sum(fields.normals, dtype=jnp.float32)

@@ -92,11 +92,10 @@ def _packed_table_bilerp(planes, u, v):
     Packs (plane[y, x], plane[y, x+1]) as the f16 lanes of a uint32 and
     bakes the +1-row shift into a second column per plane, so a
     (N^2, 2 * len(planes)) table gathered once at the flat (y0, x0)
-    index yields all four bilinear corners of every plane —
-    contiguous-row table gathers measure ~5-10x cheaper per element than
-    (1, 1) texture gathers on TPU, and a handful of uint32 columns stays
-    under the minor-dim tiling trap (CLAUDE.md render notes). f16 lane
-    precision bounds each plane to ~1e-3 relative of its own magnitude.
+    index yields all four bilinear corners of every plane — one
+    contiguous-row table gather instead of four (1, 1) texture gathers.
+    f16 lane precision bounds each plane to ~1e-3 relative of its own
+    magnitude.
     Returns one lerped array per plane (shape of ``u``).
     """
     n_y, n_x = planes[0].shape
@@ -107,20 +106,14 @@ def _packed_table_bilerp(planes, u, v):
     n_cols = len(cols)
     tab = jnp.stack(cols, axis=-1).reshape(n_y * n_x, n_cols)
 
-    # Row-count cliff: (H, W)-indexed row gathers cost ~3.95 ns/index
-    # from a table with more than 2^17 rows but ~1.33 ns/index at or
-    # below it (measured on v5e across widths 4..32; index coherence is
-    # irrelevant — CLAUDE.md gather cost model). Fold ``group`` texels
-    # into each row (adjacent flat indices, so row r = texels
-    # [r*group, (r+1)*group)) and select the right column group with the
-    # fused elementwise bits of the flat index — width is free, rows are
-    # not.
-    # Cap the fold at 8 texels/row AND 32 total u32 columns: both are the
-    # bounds the cliff was measured inside (runs-of-2..8 coherence, widths
-    # 4..32 — CLAUDE.md). Past them (e.g. a 4096^2 texture would need
-    # group=128 => 512-col rows + a 127-deep select chain per column) the
-    # unmeasured select/traffic cost plausibly exceeds the ~2.6 ns/idx
-    # saving, so leave those tables above the cliff instead.
+    # Fewer, wider rows: fold ``group`` texels into each row (adjacent
+    # flat indices, so row r = texels [r*group, (r+1)*group)) so the table
+    # keeps at most 2^17 rows, and select the right column group with the
+    # fused elementwise bits of the flat index. The fold answers a
+    # row-count gather cost of the earlier accelerator; whether it pays
+    # on the GPU is not measured. Capped at 8 texels/row AND 32 total u32
+    # columns (past them, e.g. a 4096^2 texture would need group=128 =>
+    # 512-col rows + a 127-deep select chain per column).
     group = 1
     while ((n_y * n_x) // group > (1 << 17) and group < 8
            and 2 * group * n_cols <= 32):
@@ -243,7 +236,7 @@ FOAM_COLOR = np.array([0.92, 0.96, 0.98], dtype=np.float32)
 def sample_mask_bilinear(mask: jnp.ndarray, u, v) -> jnp.ndarray:
     """Bilinear-sample an (N, N) scalar mask with repeat wrap, via the
     same packed table-row gather as the normal taps (one contiguous row
-    gather instead of four (1, 1) texture gathers — ~10x cheaper on TPU).
+    gather instead of four (1, 1) texture gathers).
     f16 lane precision is ample for a [0, 1] coverage mask."""
     return _packed_table_bilerp([mask], u, v)[0]
 

@@ -1,7 +1,7 @@
 // Native runtime components for gfx_ocean_tpu.
 //
 // The reference's host layer is entirely native (Rust over gfx-hal); the
-// TPU rebuild keeps the compute path in XLA but implements the host-side
+// JAX rebuild keeps the compute path in XLA but implements the host-side
 // asset I/O natively too (SURVEY.md §2.6): a zero-copy bincode reader for
 // the shipped spectrum.bin/omega.bin (format: u64-LE element count +
 // packed f32 payload — what bincode 1.x emits for Vec<f32> / Vec<[f32;2]>,

@@ -21,9 +21,10 @@ def test_spectrum_shape_and_range(reference_state, shipped_assets):
     assert 4.7 < omega.max() < 4.8
 
 
-def test_omega_consistent_with_deep_water_dispersion(reference_state, shipped_assets):
-    """omega.bin should be sqrt(g |k|) on the centered wavenumber grid
-    (SURVEY.md §3.4) — also validates our k-grid conventions."""
+def test_omega_consistent_with_deep_water_dispersion(reference_state):
+    """omega.bin (shipped, or generated by conftest) should be
+    sqrt(g |k|) on the centered wavenumber grid (SURVEY.md §3.4) — also
+    validates our k-grid conventions."""
     _, omega = reference_state
     from gfx_ocean_tpu.golden.reference import wavenumber_1d
 

@@ -161,7 +161,7 @@ def test_save_fields_npz(tmp_path):
 
 
 def test_cli_bench_mesh(capsys):
-    """VERDICT #6: `bench --mesh 2,4` runs on the 8-device CPU mesh."""
+    """`bench --mesh 2,4` runs on the 8-device CPU mesh."""
     assert main(["bench", *BASE, "--steps", "4", "--repeats", "1",
                  "--time-batch", "1", "--mesh", "2,4"]) == 0
     out = json.loads(capsys.readouterr().out)
@@ -218,15 +218,52 @@ def test_compile_cache_returns_active_dir(monkeypatch, tmp_path):
     from gfx_ocean_tpu.utils import compile_cache
 
     monkeypatch.delenv("JAX_COMPILATION_CACHE_DIR", raising=False)
-    got = compile_cache.enable_default_cache(str(tmp_path / "xla"))
+    got = compile_cache.enable_default_cache()
     # conftest already activated the default cache for the suite; the
     # call must report whichever dir is live, never None, and never crash.
     assert isinstance(got, str) and got
 
 
+def test_compile_cache_env_sets_no_other_dir(monkeypatch):
+    """With JAX_COMPILATION_CACHE_DIR set, the code configures nothing:
+    the jax config keeps whatever it had."""
+    import jax
+
+    from gfx_ocean_tpu.utils import compile_cache
+
+    before = jax.config.jax_compilation_cache_dir
+    monkeypatch.setenv("JAX_COMPILATION_CACHE_DIR", "/explicit/user/dir")
+    compile_cache.enable_default_cache()
+    assert jax.config.jax_compilation_cache_dir == before
+
+
+def test_compile_cache_default_is_fixed_in_checkout(monkeypatch):
+    """Without the env var the cache is .jax_cache/ at the checkout root,
+    a path that does not depend on HOME or the working directory, and
+    .gitignore lists it."""
+    import jax
+
+    from gfx_ocean_tpu.utils import compile_cache
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    assert compile_cache.DEFAULT_DIR == os.path.join(root, ".jax_cache")
+    with open(os.path.join(root, ".gitignore")) as f:
+        assert ".jax_cache/" in f.read().split()
+    monkeypatch.delenv("JAX_COMPILATION_CACHE_DIR", raising=False)
+    monkeypatch.setenv("HOME", "/nonexistent-home")
+    monkeypatch.chdir("/")
+    prev = jax.config.jax_compilation_cache_dir
+    try:
+        jax.config.update("jax_compilation_cache_dir", None)
+        assert compile_cache.enable_default_cache() == compile_cache.DEFAULT_DIR
+        assert jax.config.jax_compilation_cache_dir == compile_cache.DEFAULT_DIR
+    finally:
+        jax.config.update("jax_compilation_cache_dir", prev)
+
+
 def test_cli_render_cascades(tmp_path, capsys):
-    """render --cascades 3 --foam composites per-cascade fields (VERDICT
-    round-2 item 6: cascades are a first-class render config now)."""
+    """render --cascades 3 --foam composites per-cascade fields
+    (cascades are a first-class render config)."""
     out = str(tmp_path / "cframes")
     assert main(["render", *BASE, "--cascades", "3", "--foam",
                  "--frames", "1", "--width", "48", "--height", "32",

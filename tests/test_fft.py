@@ -75,9 +75,9 @@ def test_jit_and_grad_safe(rng):
 
 @pytest.mark.parametrize("prec", ["bf16x3", "bf16x4", "high", "highest"])
 def test_precision_tiers_accuracy(rng, prec):
-    """All compliant tiers must stay inside the 1e-4 budget (on CPU the
-    MXU emulation is exact f32, so this mainly guards plumbing; the
-    on-TPU numbers live in config.py's docstring)."""
+    """All compliant tiers must stay inside the 1e-4 budget (on CPU every
+    tier runs exact f32 products, so this mainly guards plumbing; the
+    GPU numbers come from chip_smoke.py)."""
     x = _rand_complex(rng, (64, 64))
     got = np.asarray(ifft2_unnorm(jnp.asarray(x), impl="matmul", precision=prec))
     want = np.fft.ifft2(x.astype(np.complex128)) * 64 * 64
@@ -109,24 +109,13 @@ def test_unknown_precision_rejected(rng):
 
 
 def test_effective_precision_reports_remaps():
-    """The bf16x3 -> HIGH remap above direct_max (and the Pallas / XLA
-    tier behavior) must be visible in the artifact (VERDICT r3 weak #2)."""
+    """The tier that runs is reported as such: the explicit splits run as
+    written on the matmul path (direct and four-step regime alike), and
+    the xla FFT has no tier."""
     from gfx_ocean_tpu.ops.fft import effective_precision as ep
 
-    # direct regime: explicit splits run as written
-    assert ep("bf16x3", 512) == "bf16x3"
-    assert ep("bf16x4", 1024) == "bf16x4"
-    # four-step einsum regime: remapped to the XLA-native tiers
-    assert ep("bf16x3", 2048).startswith("high (")
-    assert ep("bf16x4", 4096).startswith("highest (")
-    assert ep("high", 4096) == "high"        # native tiers pass through
-    assert ep("highest", 8192) == "highest"
-    # pallas: everything HIGH-class is the manual in-kernel bf16x3
-    assert ep("bf16x3", 512, impl="pallas") == "bf16x3"
-    assert ep("bf16x4", 4096, impl="pallas").startswith("bf16x3 (")
-    assert ep("high", 2048, impl="pallas").startswith("bf16x3 (")
-    assert ep("highest", 512, impl="pallas") == "highest"
-    # xla fft: tiers do not apply
-    assert ep("bf16x3", 512, impl="xla").startswith("n/a")
+    for tier in ("bf16x3", "bf16x4", "high", "highest", "default"):
+        assert ep(tier) == tier
+    assert ep("bf16x3", impl="xla").startswith("n/a")
     with pytest.raises(ValueError):
-        ep("f64", 512)
+        ep("f64")

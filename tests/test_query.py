@@ -57,9 +57,11 @@ def test_constant_shift_inverts_exactly():
     assert np.all(np.asarray(out.residual) < 1e-5)
 
 
-def test_parametric_surface_consistency():
+def test_parametric_surface_consistency(shipped_assets):
     """Query at a displaced point recovers that point's height wherever
-    the choppy inversion converged (residual below tolerance)."""
+    the choppy inversion converged (residual below tolerance). The bound
+    on the converged share is a property of the shipped sea, which folds
+    less than the synthesized one."""
     disp = _fields_128().displacement
     rng = np.random.default_rng(1)
     x0 = jnp.asarray(rng.uniform(0, 254, size=64).astype(np.float32))

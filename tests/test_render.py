@@ -208,13 +208,16 @@ def test_golden_frame_regression():
 
     Tolerances are loose (f32 rasterization across XLA versions); the
     structural checks (coverage mask, mean color) are the real guard.
+    The golden is the seeded synthesized sea, regenerated with
+    tools/make_golden_frame.py.
     """
     import os
 
     golden_path = os.path.join(os.path.dirname(__file__), "data",
                                "golden_frame_128.npy")
     want = np.load(golden_path)
-    state = downsample_state(ot.ocean_state_from_assets(), 128)
+    state = downsample_state(ot.ocean_state_from_phillips(
+        ot.OceanConfig(), ot.PhillipsConfig(seed=0)), 128)
     cfg = ot.OceanConfig(resolution=128, compute_normals=False)
     disp = ot.make_step(cfg)(state, jnp.float32(11.25)).displacement
     got = np.asarray(render_frame(disp, Camera(), width=96, height=64,
@@ -229,7 +232,7 @@ def test_golden_frame_regression():
 
 
 @pytest.mark.slow
-def test_production_frame_golden():
+def test_production_frame_golden(shipped_assets):
     """The presented 1200x700 frame vs a stored full-pipeline golden.
 
     The reference's de-facto integration test is its presented image
@@ -542,9 +545,9 @@ def test_tri_corners_matches_gather():
 
 
 def test_interp_matrices_match_bilinear_sampler():
-    """The MXU vertex-sampling matrices == the gather bilinear sampler at
+    """The vertex-sampling matrices == the gather bilinear sampler at
     the static mesh UV grid (exact on CPU: the two-term dot adds only
-    exact zeros; on TPU the MXU product rounding adds ~1e-5 — covered by
+    exact zeros; elsewhere product rounding adds ~1e-5 — covered by
     the pool-vs-window equality tests, which share the path)."""
     from gfx_ocean_tpu.render.raster import _interp_matrices
 
@@ -947,7 +950,7 @@ def test_pool_window_near_tie_bound(disp64):
     pins the ENVELOPE of that divergence — any real coverage or
     visibility bug blows these bounds by orders of magnitude:
       * differing pixels are rare (measured 19/840000 at 1200x700 on
-        CPU, 1/840000 on TPU after the round-4 tight-bbox alignment),
+        CPU before the scatter-min resolve; 0 at 1200x700 on an H100),
       * where both impls cover the pixel, the winners' depths agree
         within one quantized-z quantum (the documented id-tiebreak band
         of _pack_key),
@@ -978,34 +981,51 @@ def test_pool_window_near_tie_bound(disp64):
     assert one_sided <= 8, f"{one_sided} one-sided coverage flips"
 
 
-@pytest.mark.parametrize("id_bits", [17, 10])
-def test_zq_pack_roundtrip_bit_exact(id_bits):
-    """The packed resolve payload (_zq_pack_rows) must reconstruct every
-    per-pixel visibility key BIT-exactly (_zq_unpack_keys) — the packed
-    sort carries it instead of 8 full key columns, and the band/full
-    bit-equality contract rides on the reconstruction. Covers both field
-    widths (id_bits=17 -> 16-bit z fields, the production mesh; 10 ->
-    full-u32 fields) plus the all-ones sentinel/padding rows."""
+@pytest.mark.parametrize("pose", ["default", "high_oblique", "low_level"])
+def test_scatter_min_pool_matches_window(disp64, pose):
+    """The pool rasterizer's scatter-min resolve gives the window
+    rasterizer's coverage and depth at the default camera and two fixed
+    poses (one low and level, so near-field triangles reach the giant
+    pass)."""
+    cam = Camera()
+    if pose == "high_oblique":
+        cam.position = np.array([70.0, 40.0, 120.0])
+        cam.rotation = np.array([-0.8, 0.6, 0.0])
+    elif pose == "low_level":
+        cam.position = np.array([31.0, 4.0, 70.0])
+        cam.rotation = np.array([-0.1, 0.2, 0.0])
+    img_p, z_p, img_w, z_w = _render_both(disp64, cam, 80, 48, 64)
+    cov_p, cov_w = np.isfinite(z_p), np.isfinite(z_w)
+    assert cov_p.mean() > 0.05, f"{pose}: pose sees no sea"
+    np.testing.assert_array_equal(cov_p, cov_w)
+    both = cov_p & cov_w
+    np.testing.assert_allclose(z_p[both], z_w[both], rtol=0, atol=2e-6)
+    np.testing.assert_allclose(img_p, img_w, atol=1e-4)
+
+
+def test_band_keys_bit_equal_to_full_frame(disp64):
+    """Band renders stack to the full frame bit for bit, with band origins
+    that are odd rows (a pixel's oct sub lane differs between the band
+    and the full frame, so only one array expression for all 8 sub lanes
+    keeps its key identical)."""
     from gfx_ocean_tpu.render import raster as rr
+    from gfx_ocean_tpu.render.camera import perspective as persp
 
-    z_bits = 32 - id_bits
-    rng = np.random.default_rng(3)
-    n = 4096
-    # Legit keys: one shared triangle id per entry, zq <= 2^z_bits - 2
-    # (the _pack_key integer clamp), random misses -> KEY_MAX columns.
-    tri = rng.integers(0, 1 << id_bits, (1, n), dtype=np.uint32)
-    zq = rng.integers(0, (1 << z_bits) - 1, (8, n), dtype=np.uint32)
-    keys = ((zq << id_bits) | tri).astype(np.uint32)
-    miss = rng.random((8, n)) < 0.3
-    keys = np.where(miss, np.uint32(0xFFFFFFFF), keys)
-
-    packed = rr._zq_pack_rows(jnp.asarray(keys), jnp.asarray(tri), id_bits)
-    assert packed.shape == (rr._zq_key_rows(id_bits), n)
-    back = np.asarray(rr._zq_unpack_keys(packed, id_bits))
-    np.testing.assert_array_equal(back, keys)
-
-    # All-ones rows (the resolve's background sentinels and the segmin
-    # stage's block padding) must unpack to KEY_MAX in every column.
-    ones = jnp.full((rr._zq_key_rows(id_bits), 8), 0xFFFFFFFF, jnp.uint32)
-    assert (np.asarray(rr._zq_unpack_keys(ones, id_bits))
-            == np.uint32(0xFFFFFFFF)).all()
+    mres, npat, W, H, D = 32, 4, 80, 45, 3
+    positions, uvs, tris = rr._mesh_constants(mres, npat)
+    tiles, interp = rr._cascade_setup(jnp.asarray(disp64), None, mres)
+    cam = Camera()
+    vp = jnp.asarray((persp(W / H) @ cam.view()).astype(np.float32))
+    cp = jnp.asarray(cam.position.astype(np.float32))
+    args = (jnp.asarray(disp64), positions, uvs, tris, vp, cp)
+    common = (64, interp, (npat, mres), None, 1, (3.0, 3.5, 180.0, 0.0), tiles)
+    full, fz = rr._rasterize_pool(*args, W, H, rr._auto_pool(W, H), *common)
+    bh = H // D
+    bands = [rr._rasterize_pool(*args, W, bh, rr._auto_pool(W, bh, D), *common,
+                                y_origin=k * bh, full_height=H)
+             for k in range(D)]
+    assert bh % 2 == 1                      # odd band origins
+    np.testing.assert_array_equal(
+        np.concatenate([np.asarray(b[0]) for b in bands]), np.asarray(full))
+    np.testing.assert_array_equal(
+        np.concatenate([np.asarray(b[1]) for b in bands]), np.asarray(fz))

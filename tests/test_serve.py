@@ -9,7 +9,7 @@ import urllib.error
 import numpy as np
 import pytest
 
-pytest.importorskip("PIL", reason="PNG endpoints need Pillow")
+pytest.importorskip("PIL", reason="the JPEG endpoints need Pillow")
 
 import gfx_ocean_tpu as ot
 from gfx_ocean_tpu.models.ocean import downsample_state
@@ -305,8 +305,8 @@ def test_serve_with_mesh_renders():
 
 @pytest.mark.slow
 def test_renderer_cache_churn():
-    """Cycling MORE viewports than the fused-renderer cache holds
-    (VERDICT r3 weak #5): a working set that fits compiles each key
+    """Cycling MORE viewports than the fused-renderer cache holds: a
+    working set that fits compiles each key
     exactly once across repeat rounds (no thrash); evictions beyond the
     cap compile only the cold keys while the LRU protects a hot viewport;
     a slow cold-key build never stalls another client's cached frames;

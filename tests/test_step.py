@@ -178,10 +178,9 @@ def test_uniform_rollout_matches_make_rollout(reference_state):
 
 
 def test_uniform_rollout_rejects_pallas(reference_state):
-    from gfx_ocean_tpu.models.ocean import make_uniform_rollout
-
-    with pytest.raises(ValueError, match="pallas"):
-        make_uniform_rollout(OceanConfig(fft_impl="pallas"), 4, 0.1)
+    """The fused Pallas step is gone: fft_impl takes matmul or xla."""
+    with pytest.raises(ValueError, match="unknown fft_impl 'pallas'"):
+        OceanConfig(fft_impl="pallas")
 
 
 def test_choppy_precision_split(reference_state):
@@ -338,3 +337,54 @@ def test_sharded_rollout_rejects_bad_time_batch():
     ro = make_sharded_rollout(cfg, mesh, batched=True, time_batch=6)
     with pytest.raises(ValueError, match="not a multiple of"):
         ro(state, jnp.arange(100, dtype=jnp.float32))
+
+
+@pytest.mark.parametrize("impl", ["matmul", "xla"])
+@pytest.mark.parametrize("flags", [
+    CompatFlags(),
+    CompatFlags(wrap_k=True),
+    CompatFlags(ref_sign=False),
+    CompatFlags(conj_neg=True),
+])
+def test_step_each_compat_flag_matches_golden(reference_state, impl, flags):
+    """Each quirk flag alone reaches both transforms (the matmul DFT with
+    the sign folded into its tables; the xla FFT with the sign applied
+    after it) and matches the float64 golden."""
+    cfg = OceanConfig(resolution=128, fft_impl=impl, matmul_precision="highest",
+                      compat=flags)
+    st = _state(reference_state, 128)
+    got = make_step(cfg)(st, jnp.float32(3.25))
+    want = golden_fields(from_pair_np(np.asarray(st.h0)), np.asarray(st.omega),
+                         3.25, cfg.domain_size, flags)
+    err = _linf_rel(got.displacement, want)
+    assert err < 1e-5, f"{impl} {flags}: {err:.2e}"
+
+
+@pytest.mark.parametrize("impl", ["matmul", "xla"])
+def test_large_t_phase_matches_golden(reference_state, impl):
+    """At t ~ 1000 s a plain f32 omega*t product is ~3e-4 rad off; the
+    Dekker-reduced phase keeps both transforms on the float64 golden."""
+    cfg = OceanConfig(resolution=64, fft_impl=impl, matmul_precision="highest",
+                      compute_normals=False)
+    st = _state(reference_state, 64)
+    t = 1000.25
+    got = make_step(cfg)(st, jnp.float32(t))
+    want = golden_fields(from_pair_np(np.asarray(st.h0)), np.asarray(st.omega),
+                         t, cfg.domain_size, cfg.compat)
+    err = _linf_rel(got.displacement, want)
+    assert err < 1e-5, f"{impl} at t={t}: {err:.2e}"
+
+
+@pytest.mark.parametrize("pack", [False, True])
+def test_matmul_and_xla_agree(reference_state, pack):
+    """The two transforms agree with Hermitian packing off and on (the
+    packed choppy pair rides one complex transform in both)."""
+    st = _state(reference_state, 128)
+    t = jnp.float32(7.5)
+    out = {impl: np.asarray(make_step(OceanConfig(
+        resolution=128, fft_impl=impl, hermitian_pack=pack,
+        matmul_precision="highest"))(st, t).displacement)
+        for impl in ("matmul", "xla")}
+    rel = (np.abs(out["matmul"] - out["xla"]).max()
+           / np.abs(out["xla"]).max())
+    assert rel < 1e-5, f"pack={pack}: {rel:.2e}"
